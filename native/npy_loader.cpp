@@ -1,6 +1,6 @@
-// Native data loader for mmwave_radar_processing_tpu.
+// Native data loader for mmwave_radar_processing_jax.
 //
-// The TPU pipeline consumes batches of radar ADC frames as split re/im
+// The device pipeline consumes batches of radar ADC frames as split re/im
 // float32 planes; recordings store one complex64/complex128 .npy cube per
 // frame.  Feeding a >2k-frames/s device from Python (np.load per file +
 // real/imag copies, GIL-bound) becomes the bottleneck, so this C++ loader
@@ -11,7 +11,7 @@
 //     contiguous split-plane batch buffer (deinterleaving re/im on the fly)
 //
 // Exposed as a C ABI consumed via ctypes (no pybind11 dependency);
-// see mmwave_radar_processing_tpu/data/native_loader.py.
+// see mmwave_radar_processing_jax/data/native_loader.py.
 //
 // Build: g++ -O3 -march=native -shared -fPIC -std=c++17 -o libnpy_loader.so
 //        npy_loader.cpp -lpthread

@@ -1,6 +1,7 @@
-"""North-star dataflow A/B: union vs raw vs rawd x precision modes.
+"""North-star dataflow A/B: union vs rawd x precision modes (GPU).
 
-The measured table behind BENCH_SELF round 5's eight-formulation record.
+Each variant: 3 repetitions of 60 calls ended in ``block_until_ready``;
+the best repetition's ms/call is printed.
 """
 
 import json, os, sys, time
@@ -8,10 +9,9 @@ import numpy as np
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__))); sys.path.insert(0, _HERE)
 from bench import AZ_IDXS, EL_IDXS, CFAR_PARAMS, _flagship_config
 import jax
-jax.config.update("jax_compilation_cache_dir", os.path.join(_HERE, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-from mmwave_radar_processing_tpu.parallel.pipeline import build_point_cloud_pipeline
+from mmwave_radar_processing_jax.utils.platform import enable_compile_cache
+enable_compile_cache()
+from mmwave_radar_processing_jax.parallel.pipeline import build_point_cloud_pipeline
 cfg = _flagship_config()
 B = 1024
 shape = (B, cfg.num_rx_antennas, cfg.num_adc_samples, cfg.chirps_per_frame)
@@ -20,8 +20,6 @@ for seed in (0, 1):
     rng = np.random.default_rng(seed)
     sets.append((jax.device_put(rng.standard_normal(shape).astype(np.float32)),
                  jax.device_put(rng.standard_normal(shape).astype(np.float32))))
-def fence(out):
-    return np.asarray(jax.tree_util.tree_leaves(out)[-1].reshape(-1)[0])
 kw = dict(az_antenna_idxs=AZ_IDXS, el_antenna_idxs=EL_IDXS,
           cfar_params=CFAR_PARAMS, max_dets=128, backend="mxu")
 variants = [("union_fast", dict(dataflow="union")),
@@ -30,12 +28,12 @@ variants = [("union_fast", dict(dataflow="union")),
             ("rawd_f32", dict(dataflow="rawd", aoa_precision="f32"))]
 for name, extra in variants:
     fn = build_point_cloud_pipeline(cfg, **kw, **extra)
-    t0 = time.perf_counter(); fence(fn(*sets[0])); warm = time.perf_counter()-t0
+    t0 = time.perf_counter(); jax.block_until_ready(fn(*sets[0])); warm = time.perf_counter()-t0
     best = None
     for _ in range(3):
         t0 = time.perf_counter(); out = None
         for i in range(60): out = fn(*sets[i % 2])
-        fence(out)
+        jax.block_until_ready(out)
         dt = (time.perf_counter()-t0)/60*1e3
         best = dt if best is None else min(best, dt)
     print(json.dumps({"variant": name, "ms": round(best,3),

@@ -1,10 +1,10 @@
-"""Stage bisection of the north-star point-cloud pipeline on the chip.
+"""Stage bisection of the north-star point-cloud pipeline on the GPU.
 
-Times cumulative prefixes of the fused MXU pipeline (range DFT union cube ->
+Times cumulative prefixes of the fused pipeline (range DFT union cube ->
 ch0 Doppler map + magnitude -> OS-CFAR counting detection -> interior
-compaction -> AoA values -> angles + points) as separate jitted programs with
-the N>=60 fetch-fence protocol, so each stage's marginal cost is measured,
-not inferred.  Round-4 table (batch 1024): 2.86 / 4.39 / 4.72 / ~5.74 ms.
+compaction -> AoA values -> angles + points) as separate jitted programs,
+each repetition of ``--iters`` calls ended in ``block_until_ready``, so each
+stage's marginal cost is measured, not inferred.
 """
 
 import argparse
@@ -25,9 +25,9 @@ def build_stage_fns(cfg, max_dets=128, aoa_precision="fast"):
     import jax
     import jax.numpy as jnp
 
-    from mmwave_radar_processing_tpu.config import grids
-    from mmwave_radar_processing_tpu.ops import cfar as cfar_ops, masked, mxu
-    from mmwave_radar_processing_tpu.processors.point_cloud import (
+    from mmwave_radar_processing_jax.config import grids
+    from mmwave_radar_processing_jax.ops import cfar as cfar_ops, masked, mxu
+    from mmwave_radar_processing_jax.processors.point_cloud import (
         spherical_to_cartesian_flu,
     )
 
@@ -100,10 +100,9 @@ def main():
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(_HERE, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    from mmwave_radar_processing_jax.utils.platform import enable_compile_cache
+
+    enable_compile_cache()
 
     cfg = _flagship_config()
     shape = (args.batch, cfg.num_rx_antennas, cfg.num_adc_samples,
@@ -116,8 +115,6 @@ def main():
             jax.device_put(rng.standard_normal(shape).astype(np.float32)),
         ))
 
-    def fence(out):
-        return np.asarray(jax.tree_util.tree_leaves(out)[-1].reshape(-1)[0])
 
     upto = build_stage_fns(cfg, aoa_precision=args.aoa_precision)
     stages = (args.stages.split(",") if args.stages else
@@ -126,7 +123,7 @@ def main():
     for stage in stages:
         fn = upto(stage)
         t0 = time.perf_counter()
-        fence(fn(*sets[0]))
+        jax.block_until_ready(fn(*sets[0]))
         warm = time.perf_counter() - t0
         best = None
         for _ in range(args.repeats):
@@ -134,7 +131,7 @@ def main():
             out = None
             for i in range(args.iters):
                 out = fn(*sets[i % 2])
-            fence(out)
+            jax.block_until_ready(out)
             dt = (time.perf_counter() - t0) / args.iters * 1e3
             best = dt if best is None else min(best, dt)
         rows.append({"stage": stage, "ms_per_dispatch": round(best, 3),

@@ -1,9 +1,8 @@
 """A/B: range-DFT front-end formulations for the point-cloud pipeline.
 
-The round-5 stage bisection put the range-DFT union-cube stage alone at
-2.07 ms/dispatch (batch 1024) — physics is ~0.8 ms (433 MB input read at
-marginal bandwidth + 16 GFLOP of matmul), so ~1.2 ms is formulation overhead.
-Variants:
+The range-DFT union-cube stage reads the 433 MB batch-1024 input and does
+16 GFLOP of matmul; the variants below differ only in how the virtual-array
+reformat and channel selection are laid out.  Variants:
 
 - ``current``: ``mxu.range_dft_channels`` — reshape raw to
   ``(rx, ns, loops, cpl)``, stack 7 per-channel strided slices, einsum.
@@ -41,12 +40,12 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from mmwave_radar_processing_tpu.ops import mxu
-    from mmwave_radar_processing_tpu.utils.platform import (
-        enable_persistent_compile_cache,
+    from mmwave_radar_processing_jax.ops import mxu
+    from mmwave_radar_processing_jax.utils.platform import (
+        enable_compile_cache,
     )
 
-    enable_persistent_compile_cache()
+    enable_compile_cache()
 
     cfg = _flagship_config()
     ns, nloops = cfg.num_adc_samples, cfg.frame.loops
@@ -69,7 +68,7 @@ def main():
                 + jnp.einsum("rsc,sw->rwc", raw_im, rs))
         t_im = (jnp.einsum("rsc,sw->rwc", raw_im, rc)
                 - jnp.einsum("rsc,sw->rwc", raw_re, rs))
-        return t_re + t_im  # fence both
+        return t_re + t_im  # keep both planes live
 
     def tform_slice(raw_re, raw_im):
         t_re = (jnp.einsum("rsc,sw->rwc", raw_re, rc)
@@ -113,9 +112,6 @@ def main():
             jax.device_put(rng.standard_normal(shape).astype(np.float32)),
         ))
 
-    def fence(out):
-        return np.asarray(jax.tree_util.tree_leaves(out)[-1].reshape(-1)[0])
-
     variants = [("current", current), ("tform", tform),
                 ("tform_slice", tform_slice),
                 ("current_rd0mag", current_rd0mag),
@@ -123,7 +119,7 @@ def main():
     for name, single in variants:
         fn = jax.jit(jax.vmap(single))
         t0 = time.perf_counter()
-        fence(fn(*sets[0]))
+        jax.block_until_ready(fn(*sets[0]))
         warm = time.perf_counter() - t0
         best = None
         for _ in range(args.repeats):
@@ -131,7 +127,7 @@ def main():
             out = None
             for i in range(args.iters):
                 out = fn(*sets[i % 2])
-            fence(out)
+            jax.block_until_ready(out)
             dt = (time.perf_counter() - t0) / args.iters * 1e3
             best = dt if best is None else min(best, dt)
         print(json.dumps({"variant": name, "ms_per_dispatch": round(best, 3),

@@ -1,8 +1,7 @@
-"""Velocity-pipeline stage bisection on the chip (round 5).
+"""Velocity-pipeline stage bisection on the GPU.
 
 Cumulative prefixes via the ``stop_after`` knob: responses / +vx / +peaks /
-full, N=60 fetch-fence protocol.  Round-5 table: 9.5 / 9.8 / 13.8 / 19.1 ms
-before the RANSAC de-scatter + candidate prominences (-> 14.7 ms).
+full; 3 repetitions of 60 calls ended in ``block_until_ready``.
 """
 
 import json, os, sys, time
@@ -10,10 +9,9 @@ import numpy as np
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__))); sys.path.insert(0, _HERE)
 from bench import _flagship_config
 import jax
-jax.config.update("jax_compilation_cache_dir", os.path.join(_HERE, ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-from mmwave_radar_processing_tpu.parallel.velocity_pipeline import build_velocity_pipeline
+from mmwave_radar_processing_jax.utils.platform import enable_compile_cache
+enable_compile_cache()
+from mmwave_radar_processing_jax.parallel.velocity_pipeline import build_velocity_pipeline
 
 cfg = _flagship_config()
 B = 1024
@@ -24,19 +22,17 @@ for seed in (0, 1):
     sets.append((jax.device_put(g.standard_normal(shape).astype(np.float32)),
                  jax.device_put(g.standard_normal(shape).astype(np.float32)),
                  jax.device_put(np.full(B, 1.2, np.float32))))
-def fence(out):
-    return np.asarray(jax.tree_util.tree_leaves(out)[-1].reshape(-1)[0])
 import sys as _s
 stages = _s.argv[1].split(",") if len(_s.argv) > 1 else ["responses","vx","peaks",None]
 for stop in stages:
     if stop == "None": stop = None
     fn = build_velocity_pipeline(cfg, stop_after=stop)
-    t0 = time.perf_counter(); fence(fn(*sets[0])); warm = time.perf_counter()-t0
+    t0 = time.perf_counter(); jax.block_until_ready(fn(*sets[0])); warm = time.perf_counter()-t0
     best = None
     for _ in range(3):
         t0 = time.perf_counter(); out = None
         for i in range(60): out = fn(*sets[i % 2])
-        fence(out)
+        jax.block_until_ready(out)
         dt = (time.perf_counter()-t0)/60*1e3
         best = dt if best is None else min(best, dt)
     print(json.dumps({"stage": stop or "full", "ms": round(best,3),

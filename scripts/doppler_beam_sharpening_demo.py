@@ -21,16 +21,12 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from mmwave_radar_processing_tpu.utils.platform import ensure_complex_support
-
-ensure_complex_support()
-
-from mmwave_radar_processing_tpu.config import load_cfg
-from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frame
-from mmwave_radar_processing_tpu.plotting import PlotterMmWaveData
-from mmwave_radar_processing_tpu.processors.dbs import RangeAngleProcessorDBSEnhanced
-from mmwave_radar_processing_tpu.processors.virtual_array import VirtualArrayReformatter
-from mmwave_radar_processing_tpu.utils.logger import setup_logger
+from mmwave_radar_processing_jax.config import load_cfg
+from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frame
+from mmwave_radar_processing_jax.plotting import PlotterMmWaveData
+from mmwave_radar_processing_jax.processors.dbs import RangeAngleProcessorDBSEnhanced
+from mmwave_radar_processing_jax.processors.virtual_array import VirtualArrayReformatter
+from mmwave_radar_processing_jax.utils.logger import setup_logger
 
 
 def main():

@@ -19,14 +19,12 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from mmwave_radar_processing_tpu.utils.platform import ensure_complex_support
-from mmwave_radar_processing_tpu.utils.env import load_env
+from mmwave_radar_processing_jax.utils.env import load_env
 
-ensure_complex_support()
 load_env()
 
-from mmwave_radar_processing_tpu.utils.logger import setup_logger
-from mmwave_radar_processing_tpu.visualization import (
+from mmwave_radar_processing_jax.utils.logger import setup_logger
+from mmwave_radar_processing_jax.visualization import (
     MmWaveRadarProcessorController,
     get_default_registry,
 )
@@ -58,7 +56,7 @@ def main():
         have_qt = False
 
     if have_qt and not args.export_movie:
-        from mmwave_radar_processing_tpu.visualization.qt_shell import run_qt_viewer
+        from mmwave_radar_processing_jax.visualization.qt_shell import run_qt_viewer
 
         run_qt_viewer(controller)
         return
@@ -71,7 +69,7 @@ def main():
         logger.info("processed %d frames", n)
         return
 
-    from mmwave_radar_processing_tpu.visualization.video_exporter import VideoExporter
+    from mmwave_radar_processing_jax.visualization.video_exporter import VideoExporter
 
     exporter = VideoExporter(controller, view_keys=args.views)
     n = exporter.export(args.export_movie, 0, args.frames)

@@ -20,18 +20,18 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from mmwave_radar_processing_tpu.utils.env import load_env, resolve_dir
+from mmwave_radar_processing_jax.utils.env import load_env, resolve_dir
 
 load_env()
 
-from mmwave_radar_processing_tpu.config import load_cfg
-from mmwave_radar_processing_tpu.data import native_loader
-from mmwave_radar_processing_tpu.data.cpsl_dataset import CpslDS
-from mmwave_radar_processing_tpu.utils.logger import setup_logger
-from mmwave_radar_processing_tpu.utils.profiling import StageTimer
+from mmwave_radar_processing_jax.config import load_cfg
+from mmwave_radar_processing_jax.data import native_loader
+from mmwave_radar_processing_jax.data.cpsl_dataset import CpslDS
+from mmwave_radar_processing_jax.utils.logger import setup_logger
+from mmwave_radar_processing_jax.utils.profiling import StageTimer
 
 
-def main():
+def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--dataset", required=True)
     p.add_argument("--radar-config", default="configs/6843_RadVel_ods_20Hz.cfg")
@@ -48,14 +48,14 @@ def main():
                    help="2d: OS-CFAR-2D detector + ADC-path velocity; "
                         "ground: altitude-gated detector (stateful altimeter "
                         "scan) + points-path velocity")
-    args = p.parse_args()
+    args = p.parse_args(argv)
 
     logger = setup_logger()
     import jax
 
-    from mmwave_radar_processing_tpu.parallel import build_point_cloud_pipeline
-    from mmwave_radar_processing_tpu.parallel.full_pipeline import build_full_pipeline
-    from mmwave_radar_processing_tpu.parallel.ground_pipeline import (
+    from mmwave_radar_processing_jax.parallel import build_point_cloud_pipeline
+    from mmwave_radar_processing_jax.parallel.full_pipeline import build_full_pipeline
+    from mmwave_radar_processing_jax.parallel.ground_pipeline import (
         build_ground_point_cloud_pipeline,
     )
 

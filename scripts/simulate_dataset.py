@@ -18,13 +18,13 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from mmwave_radar_processing_tpu.config import load_cfg
-from mmwave_radar_processing_tpu.data import ground_scene, simulate_frame
-from mmwave_radar_processing_tpu.data.cpsl_dataset import make_odom_rows, write_dataset
-from mmwave_radar_processing_tpu.utils.logger import setup_logger
+from mmwave_radar_processing_jax.config import load_cfg
+from mmwave_radar_processing_jax.data import ground_scene, simulate_frame
+from mmwave_radar_processing_jax.data.cpsl_dataset import make_odom_rows, write_dataset
+from mmwave_radar_processing_jax.utils.logger import setup_logger
 
 
-def main():
+def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--out", required=True, help="output dataset directory")
     p.add_argument("--config", default="configs/6843_RadVel_ods_20Hz.cfg")
@@ -42,7 +42,7 @@ def main():
     p.add_argument("--patches", type=int, default=64, help="ground patches/frame")
     p.add_argument("--noise", type=float, default=0.04)
     p.add_argument("--seed", type=int, default=0)
-    args = p.parse_args()
+    args = p.parse_args(argv)
 
     logger = setup_logger()
     cfg = load_cfg(args.config, args.array_geometry, args.array_direction)

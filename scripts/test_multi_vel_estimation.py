@@ -24,19 +24,17 @@ import yaml
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from mmwave_radar_processing_tpu.utils.platform import ensure_complex_support
-from mmwave_radar_processing_tpu.utils.env import load_env, resolve_dir
+from mmwave_radar_processing_jax.utils.env import load_env, resolve_dir
 
-ensure_complex_support()
 load_env()
 
-from mmwave_radar_processing_tpu.analysis import VelocityAnalyzer
-from mmwave_radar_processing_tpu.config import load_cfg
-from mmwave_radar_processing_tpu.data.cpsl_dataset import CpslDS
-from mmwave_radar_processing_tpu.point_cloud_processing import VelocityEstimator
-from mmwave_radar_processing_tpu.processors.point_cloud import PointCloudGenerator
-from mmwave_radar_processing_tpu.processors.virtual_array import VirtualArrayReformatter
-from mmwave_radar_processing_tpu.utils.logger import setup_logger
+from mmwave_radar_processing_jax.analysis import VelocityAnalyzer
+from mmwave_radar_processing_jax.config import load_cfg
+from mmwave_radar_processing_jax.data.cpsl_dataset import CpslDS
+from mmwave_radar_processing_jax.point_cloud_processing import VelocityEstimator
+from mmwave_radar_processing_jax.processors.point_cloud import PointCloudGenerator
+from mmwave_radar_processing_jax.processors.virtual_array import VirtualArrayReformatter
+from mmwave_radar_processing_jax.utils.logger import setup_logger
 
 
 def analyze_dataset(cfg, dataset_path, params, logger):

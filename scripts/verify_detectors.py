@@ -17,7 +17,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from mmwave_radar_processing_tpu.detectors import get_detector_registry
+from mmwave_radar_processing_jax.detectors import get_detector_registry
 
 
 def main():

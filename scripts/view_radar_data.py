@@ -21,21 +21,17 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from mmwave_radar_processing_tpu.utils.platform import ensure_complex_support
-
-ensure_complex_support()
-
-from mmwave_radar_processing_tpu.config import load_cfg
-from mmwave_radar_processing_tpu.data.cpsl_dataset import CpslDS
-from mmwave_radar_processing_tpu.plotting import PlotterMmWaveData
-from mmwave_radar_processing_tpu.processors import (
+from mmwave_radar_processing_jax.config import load_cfg
+from mmwave_radar_processing_jax.data.cpsl_dataset import CpslDS
+from mmwave_radar_processing_jax.plotting import PlotterMmWaveData
+from mmwave_radar_processing_jax.processors import (
     DopplerAzimuthProcessor,
     MicroDopplerProcessor,
     RangeAngleProcessor,
     RangeDopplerProcessor,
     VirtualArrayReformatter,
 )
-from mmwave_radar_processing_tpu.utils.logger import setup_logger
+from mmwave_radar_processing_jax.utils.logger import setup_logger
 
 
 def main():

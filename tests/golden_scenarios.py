@@ -10,7 +10,7 @@ faces each:
   at generation time still matches — drift fails loudly, not numerically).
 - ``run_reference()`` — the reference-side computation (imports
   ``/root/reference``; used ONLY by ``scripts/make_goldens.py``).
-- ``run_ours()``     — our TPU-native computation.
+- ``run_ours()``     — our JAX computation.
 - ``compare(ours, golden)`` — the parity assertions, with the same tolerances
   as the live-reference tests.
 
@@ -82,7 +82,7 @@ def input_sha(inputs: Dict[str, np.ndarray]) -> str:
 
 
 def _ours_cfg(path=FLAGSHIP_CFG, geometry="ods", direction="down"):
-    from mmwave_radar_processing_tpu.config import load_cfg
+    from mmwave_radar_processing_jax.config import load_cfg
 
     return load_cfg(path, array_geometry=geometry, array_direction=direction)
 
@@ -173,7 +173,7 @@ def _config_scenario():
 # spectral processors, flagship ODS config (test_parity_processors.py mirror)
 # --------------------------------------------------------------------------- #
 def _spectral_raw_cube():
-    from mmwave_radar_processing_tpu.data import (
+    from mmwave_radar_processing_jax.data import (
         PointTarget, Scene, simulate_frame,
     )
 
@@ -277,7 +277,7 @@ def _spectral_scenario():
         return out
 
     def run_ours(inputs):
-        from mmwave_radar_processing_tpu.processors import (
+        from mmwave_radar_processing_jax.processors import (
             DopplerAzimuthProcessor,
             MicroDopplerProcessor,
             RangeAngleProcessor,
@@ -385,7 +385,7 @@ ALT_PROFILE = [0.6, 0.65, 0.72, 0.70]
 @scenario("altimeter_ods")
 def _altimeter_scenario():
     def make_inputs():
-        from mmwave_radar_processing_tpu.data import (
+        from mmwave_radar_processing_jax.data import (
             PointTarget, Scene, simulate_frame,
         )
 
@@ -415,7 +415,7 @@ def _altimeter_scenario():
         return {"track": np.asarray(track, np.float64)}
 
     def run_ours(inputs):
-        from mmwave_radar_processing_tpu.processors import Altimeter
+        from mmwave_radar_processing_jax.processors import Altimeter
 
         params = {k: v for k, v in ALT_PARAMS.items()
                   if k != "precise_est_enabled"}
@@ -451,7 +451,7 @@ CFAR_CASES = [
 @scenario("cfar_detectors")
 def _cfar_scenario():
     def make_inputs():
-        from mmwave_radar_processing_tpu.processors import (
+        from mmwave_radar_processing_jax.processors import (
             RangeDopplerProcessor, RangeProcessor, VirtualArrayReformatter,
         )
 
@@ -480,7 +480,7 @@ def _cfar_scenario():
         return _run(get_detector_registry(), inputs)
 
     def run_ours(inputs):
-        from mmwave_radar_processing_tpu.detectors import (
+        from mmwave_radar_processing_jax.detectors import (
             get_detector_registry,
         )
 
@@ -501,7 +501,7 @@ def _cfar_scenario():
 # RD detector family + point clouds (test_parity_detection.py mirror)
 # --------------------------------------------------------------------------- #
 def _ground_cubes():
-    from mmwave_radar_processing_tpu.data import (
+    from mmwave_radar_processing_jax.data import (
         PointTarget, Scene, simulate_frame,
     )
 
@@ -542,7 +542,7 @@ PCG_2D_KW = dict(
 def _detection_scenario():
     def make_inputs():
         raws = _ground_cubes()
-        from mmwave_radar_processing_tpu.processors import (
+        from mmwave_radar_processing_jax.processors import (
             VirtualArrayReformatter,
         )
 
@@ -606,13 +606,13 @@ def _detection_scenario():
                      _ref_cfg()), inputs)
 
     def run_ours(inputs):
-        from mmwave_radar_processing_tpu.processors.detection import (
+        from mmwave_radar_processing_jax.processors.detection import (
             RangeDetector,
             RangeDopplerDetector2D,
             RangeDopplerDetectorSequential,
             RangeDopplerGroundDetector,
         )
-        from mmwave_radar_processing_tpu.processors.point_cloud import (
+        from mmwave_radar_processing_jax.processors.point_cloud import (
             PointCloudGenerator,
         )
 
@@ -648,10 +648,10 @@ VEL_ALTITUDE = 1.2
 @scenario("velocity_adc_ods")
 def _velocity_scenario():
     def make_inputs():
-        from mmwave_radar_processing_tpu.data import (
+        from mmwave_radar_processing_jax.data import (
             ground_scene, simulate_frame,
         )
-        from mmwave_radar_processing_tpu.processors import (
+        from mmwave_radar_processing_jax.processors import (
             VirtualArrayReformatter,
         )
 
@@ -691,7 +691,7 @@ def _velocity_scenario():
         return {"velocity": np.stack(vels), "az_resp_0": az0}
 
     def run_ours(inputs):
-        from mmwave_radar_processing_tpu.processors.velocity_estimator import (
+        from mmwave_radar_processing_jax.processors.velocity_estimator import (
             VelocityEstimator,
         )
 
@@ -778,7 +778,7 @@ def _points_scenario():
         return {"out_3d": out3d, "out_2d": out2d, "out_vehicle": outv}
 
     def run_ours(inputs):
-        from mmwave_radar_processing_tpu.point_cloud_processing import (
+        from mmwave_radar_processing_jax.point_cloud_processing import (
             VehicleVelEstimator,
             VelocityEstimator as PointsVE,
         )
@@ -823,7 +823,7 @@ SA_VEL = np.array([0.2, 0.01, 0.0])
 
 
 def _sar_cubes():
-    from mmwave_radar_processing_tpu.data import (
+    from mmwave_radar_processing_jax.data import (
         PointTarget, Scene, simulate_frame,
     )
 
@@ -922,16 +922,16 @@ def _sar_scenario():
                     inputs)
 
     def run_ours(inputs):
-        from mmwave_radar_processing_tpu.processors.dbs import (
+        from mmwave_radar_processing_jax.processors.dbs import (
             RangeAngleProcessorDBSEnhanced,
         )
-        from mmwave_radar_processing_tpu.processors.strip_map_sar import (
+        from mmwave_radar_processing_jax.processors.strip_map_sar import (
             StripMapSARProcessor,
         )
-        from mmwave_radar_processing_tpu.processors.synthetic_array import (
+        from mmwave_radar_processing_jax.processors.synthetic_array import (
             SyntheticArrayBeamformerProcessor,
         )
-        from mmwave_radar_processing_tpu.processors.virtual_array import (
+        from mmwave_radar_processing_jax.processors.virtual_array import (
             VirtualArrayReformatter,
         )
 
@@ -971,10 +971,10 @@ def _sar_scenario():
 @scenario("standard_1843")
 def _standard_scenario():
     def make_inputs():
-        from mmwave_radar_processing_tpu.data import (
+        from mmwave_radar_processing_jax.data import (
             PointTarget, Scene, simulate_frame,
         )
-        from mmwave_radar_processing_tpu.processors import (
+        from mmwave_radar_processing_jax.processors import (
             VirtualArrayReformatter,
         )
 
@@ -1030,13 +1030,13 @@ def _standard_scenario():
         return out
 
     def run_ours(inputs):
-        from mmwave_radar_processing_tpu.processors import (
+        from mmwave_radar_processing_jax.processors import (
             DopplerAzimuthProcessor, RangeDopplerProcessor,
         )
-        from mmwave_radar_processing_tpu.processors.detection import (
+        from mmwave_radar_processing_jax.processors.detection import (
             RangeDopplerDetector2D,
         )
-        from mmwave_radar_processing_tpu.processors.velocity_estimator import (
+        from mmwave_radar_processing_jax.processors.velocity_estimator import (
             VelocityEstimator,
         )
 

@@ -1,7 +1,7 @@
 """End-to-end ADC-path accuracy: fused velocity pipeline vs live reference.
 
 The accuracy leg of the north star: N simulated down-facing recordings run
-through BOTH the fused TPU velocity pipeline and the reference's
+through BOTH the fused velocity pipeline and the reference's
 ``VelocityEstimator.process(adc_cube, altitude)`` ADC path
 (``/root/reference/.../velocity_estimator.py:785-872``), then
 ``VelocityAnalyzer`` summary statistics (Mean/RMSE/90% tail, per axis) are
@@ -20,12 +20,12 @@ import pytest
 
 from tests.conftest import REFERENCE_ROOT, requires_reference
 
-from mmwave_radar_processing_tpu.analysis import VelocityAnalyzer
-from mmwave_radar_processing_tpu.data import ground_scene, simulate_frame
-from mmwave_radar_processing_tpu.parallel.velocity_pipeline import (
+from mmwave_radar_processing_jax.analysis import VelocityAnalyzer
+from mmwave_radar_processing_jax.data import ground_scene, simulate_frame
+from mmwave_radar_processing_jax.parallel.velocity_pipeline import (
     build_velocity_pipeline,
 )
-from mmwave_radar_processing_tpu.processors import VirtualArrayReformatter
+from mmwave_radar_processing_jax.processors import VirtualArrayReformatter
 
 pytestmark = requires_reference
 
@@ -98,7 +98,7 @@ def test_adc_velocity_accuracy_tracks_reference(flagship_config, flagship_cfg_pa
 
     rep_ours = _summary(ours, gt)
     rep_ref = _summary(theirs, gt)
-    print("\n== fused TPU pipeline ==\n", rep_ours)
+    print("\n== fused pipeline ==\n", rep_ours)
     print("== reference ADC path ==\n", rep_ref)
 
     # summary statistics track the reference within the stated bound
@@ -131,7 +131,7 @@ def _std_scene_and_points(cfg, ego, rng, n_targets=150):
     line resolves azimuth only); each radial velocity is ``-u . v_ego`` —
     the geometry both the ADC sub-array path and the 2D points path invert.
     """
-    from mmwave_radar_processing_tpu.data import PointTarget, Scene
+    from mmwave_radar_processing_jax.data import PointTarget, Scene
 
     vx, vy = ego
     targets, pts = [], []
@@ -154,7 +154,7 @@ def _std_scene_and_points(cfg, ego, rng, n_targets=150):
 def std_recordings():
     import os
 
-    from mmwave_radar_processing_tpu.config import load_cfg
+    from mmwave_radar_processing_jax.config import load_cfg
 
     cfg_path = os.path.join(os.path.dirname(__file__), "..", "configs",
                             STD_CFG)
@@ -185,7 +185,7 @@ def test_standard_geometry_adc_accuracy_tracks_reference(std_recordings):
         VelocityEstimator as RefVelocityEstimator,
     )
 
-    from mmwave_radar_processing_tpu.processors.velocity_estimator import (
+    from mmwave_radar_processing_jax.processors.velocity_estimator import (
         VelocityEstimator,
     )
 
@@ -239,7 +239,7 @@ def test_standard_geometry_points_accuracy_tracks_reference(std_recordings):
         VelocityEstimator as RefPointsEstimator,
     )
 
-    from mmwave_radar_processing_tpu.point_cloud_processing.vel_estimator import (
+    from mmwave_radar_processing_jax.point_cloud_processing.vel_estimator import (
         VelocityEstimator as PointsEstimator,
     )
 
@@ -278,7 +278,7 @@ def test_standard_geometry_hybrid_beats_both(std_recordings):
     vy RMSE must land at least 5x under the mandated 0.3 m/s bar while vx
     stays bit-compatible with the parity mode.
     """
-    from mmwave_radar_processing_tpu.processors.velocity_estimator import (
+    from mmwave_radar_processing_jax.processors.velocity_estimator import (
         VelocityEstimator,
     )
 

@@ -11,18 +11,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mmwave_radar_processing_tpu.config import grids
-from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frame
-from mmwave_radar_processing_tpu.data.simulator import ods_geometry
-from mmwave_radar_processing_tpu.ops import beamform as bf, mxu
-from mmwave_radar_processing_tpu.processors.beamforming import (
+from mmwave_radar_processing_jax.config import grids
+from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frame
+from mmwave_radar_processing_jax.data.simulator import ods_geometry
+from mmwave_radar_processing_jax.ops import beamform as bf, mxu
+from mmwave_radar_processing_jax.processors.beamforming import (
     BartlettBeamformerProcessor,
     CaponBeamformerProcessor,
     ODS_AZ_IDXS,
     ODS_EL_IDXS,
     l_array_positions,
 )
-from mmwave_radar_processing_tpu.processors.virtual_array import (
+from mmwave_radar_processing_jax.processors.virtual_array import (
     VirtualArrayReformatter,
 )
 
@@ -93,12 +93,10 @@ def test_capon_matches_numpy_oracle(rng):
 
 
 def test_capon_rejects_unknown_method(rng):
-    """A typo'd / leaked method string must raise, not silently run 'solve'.
+    """A typo'd or retired method string must raise, not silently run 'solve'.
 
-    'pallas' is a pipeline-level backend resolved before
-    ``capon_from_covariance`` (parallel/capon_pipeline.py); if it leaks
-    through — or a user typos 'liv' — the old behavior was a silent fall
-    through to the slow solve path.
+    'pallas' named a kernel that no longer exists; it, or a typo such as
+    'liv', must not fall through to the slow solve path.
     """
     import pytest
 
@@ -118,7 +116,7 @@ def test_point_cloud_capon_aoa(flagship_config):
     single-snapshot FFT; both must localize a clean planted target to the
     same grid neighborhood.
     """
-    from mmwave_radar_processing_tpu.processors import (
+    from mmwave_radar_processing_jax.processors import (
         PointCloudGenerator,
         VirtualArrayReformatter,
     )
@@ -171,16 +169,16 @@ def test_capon_large_aperture_cholesky_branch(rng):
     np.testing.assert_allclose(got, oracle, rtol=1e-3, atol=1e-5)
 
 
-@pytest.mark.parametrize("batch", [8, 13])  # multiple + non-multiple of tile
-def test_pallas_bartlett_matches_xla(rng, batch):
-    from mmwave_radar_processing_tpu.ops.pallas.beamform import bartlett_power
-
+@pytest.mark.parametrize("batch", [8, 13])
+def test_bartlett_snapshots_matches_covariance(rng, batch):
+    """mean_k |a^H x_k|^2 (the pipelines' Bartlett path) == a^H R a."""
     x = random_snapshots(rng, (batch, 12, 70))
     steering = bf.steering_ula(grids.phase_shift_bins(64), 12)
     c2 = mxu.from_complex(x)
-    fused = np.asarray(bartlett_power(c2, steering, interpret=True))
-    ref = np.asarray(bf.bartlett_from_snapshots(c2, steering))
-    np.testing.assert_allclose(fused, ref, rtol=1e-5, atol=1e-4)
+    got = np.asarray(bf.bartlett_from_snapshots(c2, steering))
+    ref = np.asarray(bf.bartlett_from_covariance(bf.spatial_covariance(c2),
+                                                 steering))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-4)
 
 
 # ------------------------------------------------------------------ physics
@@ -297,14 +295,14 @@ def test_azimuth_elevation_heatmap_l_array_boresight(flagship_config):
 ])
 def test_capon_pipeline_matches_processor(flagship_config, method, cls):
     """The fused batch pipeline equals the per-frame processor object."""
-    from mmwave_radar_processing_tpu.parallel import build_capon_pipeline
+    from mmwave_radar_processing_jax.parallel import build_capon_pipeline
 
     scenes = [
         Scene(targets=[PointTarget(range_m=1.0 + 0.2 * i, azimuth_rad=0.1 * i,
                                    velocity_m_s=0.2 * (i % 2), rcs=3.0)])
         for i in range(3)
     ]
-    from mmwave_radar_processing_tpu.data import simulate_frames
+    from mmwave_radar_processing_jax.data import simulate_frames
 
     raw = simulate_frames(flagship_config, scenes).astype(np.complex64)
     fn = build_capon_pipeline(flagship_config, antenna_idxs=ODS_AZ_IDXS,
@@ -340,8 +338,8 @@ def test_capon_linv_matches_solve():
     """
     import jax.numpy as jnp
 
-    from mmwave_radar_processing_tpu.ops import beamform as bf
-    from mmwave_radar_processing_tpu.ops.mxu import C2
+    from mmwave_radar_processing_jax.ops import beamform as bf
+    from mmwave_radar_processing_jax.ops.mxu import C2
 
     rng = np.random.default_rng(7)
     for a_n, m in ((4, 64), (8, 48), (12, 64)):
@@ -357,81 +355,51 @@ def test_capon_linv_matches_solve():
         np.testing.assert_allclose(p_new, p_old, rtol=5e-5)
 
 
-def test_capon_pallas_kernel_matches_oracle():
-    """Fused Pallas Capon (interpret mode) == covariance + linv oracle."""
-    import jax.numpy as jnp
-
-    from mmwave_radar_processing_tpu.ops import beamform as bf
-    from mmwave_radar_processing_tpu.ops.mxu import C2
-    from mmwave_radar_processing_tpu.ops.pallas.capon import capon_power_pallas
-
-    rng = np.random.default_rng(5)
-    B, A, W, K, M = 4, 4, 63, 70, 64
-    xr = rng.standard_normal((B, A, W, K)).astype(np.float32)
-    xi = rng.standard_normal((B, A, W, K)).astype(np.float32)
-    st = bf.steering_ula(np.linspace(-np.pi, np.pi, M, endpoint=False), A)
-    snaps = C2(jnp.moveaxis(jnp.asarray(xr), 1, 2),
-               jnp.moveaxis(jnp.asarray(xi), 1, 2))
-    want = np.asarray(bf.capon_from_covariance(
-        bf.spatial_covariance(snaps), st, loading=1e-2, method="linv"))
-    got = np.asarray(capon_power_pallas(
-        xr, xi, np.asarray(st.re), np.asarray(st.im), loading=1e-2,
-        interpret=True, frames_per_block=2))
-    np.testing.assert_allclose(got, want, rtol=5e-5)
-
-
-def test_capon_pipeline_pallas_matches_linv(flagship_config):
-    """build_capon_pipeline capon_method='pallas' == 'linv' end to end."""
-    from mmwave_radar_processing_tpu.parallel.capon_pipeline import (
-        build_capon_pipeline,
-    )
-
-    rng = np.random.default_rng(9)
-    cfg = flagship_config
+def _capon_pipeline_inputs(cfg, seed):
+    rng = np.random.default_rng(seed)
     shape = (2, cfg.num_rx_antennas, cfg.num_adc_samples,
              cfg.chirps_per_frame)
-    rr = rng.standard_normal(shape).astype(np.float32)
-    ri = rng.standard_normal(shape).astype(np.float32)
-    a = np.asarray(build_capon_pipeline(cfg, capon_method="linv")(rr, ri))
-    b = np.asarray(build_capon_pipeline(cfg, capon_method="pallas")(rr, ri))
-    np.testing.assert_allclose(b, a, rtol=5e-5)
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
 
 
-def test_bartlett_pallas_cov_matches_oracle(flagship_config):
-    """Fused covariance-pair Bartlett kernel == a^H R a oracle, and the
-    pipeline backend flag produces the same maps as the XLA path."""
-    import jax.numpy as jnp
-
-    from mmwave_radar_processing_tpu.ops import beamform as bf
-    from mmwave_radar_processing_tpu.ops.mxu import C2
-    from mmwave_radar_processing_tpu.ops.pallas.capon import (
-        bartlett_power_pallas_cov,
-    )
-    from mmwave_radar_processing_tpu.parallel.capon_pipeline import (
+def test_capon_pipeline_linv_matches_solve(flagship_config):
+    """build_capon_pipeline capon_method='linv' == 'solve' end to end."""
+    from mmwave_radar_processing_jax.parallel.capon_pipeline import (
         build_capon_pipeline,
     )
 
-    rng = np.random.default_rng(3)
-    B, A, W, K, M = 4, 4, 63, 70, 64
-    xr = rng.standard_normal((B, A, W, K)).astype(np.float32)
-    xi = rng.standard_normal((B, A, W, K)).astype(np.float32)
-    st = bf.steering_ula(np.linspace(-np.pi, np.pi, M, endpoint=False), A)
-    snaps = C2(jnp.moveaxis(jnp.asarray(xr), 1, 2),
-               jnp.moveaxis(jnp.asarray(xi), 1, 2))
+    rr, ri = _capon_pipeline_inputs(flagship_config, 9)
+    a = np.asarray(build_capon_pipeline(flagship_config,
+                                        capon_method="linv")(rr, ri))
+    b = np.asarray(build_capon_pipeline(flagship_config,
+                                        capon_method="solve")(rr, ri))
+    np.testing.assert_allclose(a, b, rtol=5e-5)
+
+
+def test_bartlett_pipeline_matches_covariance_oracle(flagship_config):
+    """The pipeline's Bartlett maps == a^H R a on its own range DFT."""
+    import jax.numpy as jnp
+
+    from mmwave_radar_processing_jax.config import grids
+    from mmwave_radar_processing_jax.ops import windows
+    from mmwave_radar_processing_jax.ops.mxu import C2
+    from mmwave_radar_processing_jax.parallel.capon_pipeline import (
+        build_capon_pipeline,
+    )
+
+    cfg = flagship_config
+    rr, ri = _capon_pipeline_inputs(cfg, 3)
+    idxs = (0, 3, 4, 7)
+    got = np.asarray(build_capon_pipeline(cfg, antenna_idxs=idxs,
+                                          method="bartlett")(rr, ri))
+    virt = jnp.stack([VirtualArrayReformatter(cfg).process(rr[b] + 1j * ri[b])
+                      for b in range(rr.shape[0])])[:, list(idxs)]
+    ns = cfg.num_adc_samples
+    rng_f = mxu.dft_factors(ns, window=windows.hanning(ns))
+    rng_dft = mxu.dft_apply(mxu.from_complex(virt), rng_f, axis=-2)
+    snaps = C2(jnp.moveaxis(rng_dft.re, 1, 2), jnp.moveaxis(rng_dft.im, 1, 2))
+    st = bf.steering_ula(grids.phase_shift_bins(64), len(idxs))
     want = np.asarray(bf.bartlett_from_covariance(
         bf.spatial_covariance(snaps), st))
-    got = np.asarray(bartlett_power_pallas_cov(
-        xr, xi, np.asarray(st.re), np.asarray(st.im), interpret=True,
-        frames_per_block=2))
-    np.testing.assert_allclose(got, want, rtol=5e-5)
-
-    cfg = flagship_config
-    shape = (2, cfg.num_rx_antennas, cfg.num_adc_samples,
-             cfg.chirps_per_frame)
-    rr = rng.standard_normal(shape).astype(np.float32)
-    ri = rng.standard_normal(shape).astype(np.float32)
-    a = np.asarray(build_capon_pipeline(cfg, method="bartlett",
-                                        bartlett_backend="xla")(rr, ri))
-    b = np.asarray(build_capon_pipeline(cfg, method="bartlett",
-                                        bartlett_backend="pallas_cov")(rr, ri))
-    np.testing.assert_allclose(b, a, rtol=5e-5, atol=1e-4)
+    np.testing.assert_allclose(got, want, rtol=5e-5, atol=1e-4 * want.max())

@@ -13,7 +13,7 @@ import sys
 import numpy as np
 import pytest
 
-from mmwave_radar_processing_tpu.config import ConfigManager, grids, load_cfg
+from mmwave_radar_processing_jax.config import ConfigManager, grids, load_cfg
 from tests.conftest import REFERENCE_ROOT, requires_reference
 
 CONFIG_DIR = os.path.join(os.path.dirname(__file__), "..", "configs")

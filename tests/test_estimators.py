@@ -12,14 +12,14 @@ import pytest
 
 from tests.conftest import REFERENCE_ROOT, requires_reference, reference_available
 
-from mmwave_radar_processing_tpu.analysis import VelocityAnalyzer
-from mmwave_radar_processing_tpu.data import Scene, ground_scene, simulate_frame
-from mmwave_radar_processing_tpu.point_cloud_processing import (
+from mmwave_radar_processing_jax.analysis import VelocityAnalyzer
+from mmwave_radar_processing_jax.data import Scene, ground_scene, simulate_frame
+from mmwave_radar_processing_jax.point_cloud_processing import (
     VehicleVelEstimator,
     VelocityEstimator as PointsVelocityEstimator,
 )
-from mmwave_radar_processing_tpu.processors.velocity_estimator import VelocityEstimator
-from mmwave_radar_processing_tpu.processors.virtual_array import VirtualArrayReformatter
+from mmwave_radar_processing_jax.processors.velocity_estimator import VelocityEstimator
+from mmwave_radar_processing_jax.processors.virtual_array import VirtualArrayReformatter
 
 if reference_available():
     sys.path.insert(0, REFERENCE_ROOT)
@@ -62,7 +62,7 @@ def test_points_velocity_estimator_ods(flagship_config, rng):
 
 
 def test_points_velocity_estimator_standard(flagship_cfg_path, rng):
-    from mmwave_radar_processing_tpu.config import load_cfg
+    from mmwave_radar_processing_jax.config import load_cfg
 
     cfg = load_cfg(str(flagship_cfg_path), array_geometry="standard")
     est = PointsVelocityEstimator(cfg, min_R2_threshold=0.5, min_inlier_percent=0.5)
@@ -189,7 +189,7 @@ def test_ransac_statistical_parity(flagship_cfg_path):
     from mmwave_radar_processing.processors.velocity_estimator import (
         VelocityEstimator as RefVE,
     )
-    from mmwave_radar_processing_tpu.config import load_cfg
+    from mmwave_radar_processing_jax.config import load_cfg
 
     ref_cfg = ConfigManager()
     ref_cfg.load_cfg(str(flagship_cfg_path), array_geometry="standard",
@@ -248,8 +248,8 @@ def test_hybrid_vy_tolerates_zero_padded_points(flagship_cfg_path, rng):
     rows; normalizing a zero row produced NaN directions that poisoned every
     RANSAC trial.
     """
-    from mmwave_radar_processing_tpu.config import load_cfg
-    from mmwave_radar_processing_tpu.processors.velocity_estimator import (
+    from mmwave_radar_processing_jax.config import load_cfg
+    from mmwave_radar_processing_jax.processors.velocity_estimator import (
         VelocityEstimator,
     )
 

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import yaml
 
-from mmwave_radar_processing_tpu.visualization.views import (
+from mmwave_radar_processing_jax.visualization.views import (
     AltitudeView,
     DopplerAzimuthView,
     MicroDopplerView,
@@ -192,11 +192,11 @@ def test_pyqtgraph_backend_degrades_gracefully():
     classes themselves are exercised on Qt-equipped machines via
     scripts/verify_gui_logic.py --backend pyqtgraph.)
     """
-    from mmwave_radar_processing_tpu.visualization import pyqtgraph_views
+    from mmwave_radar_processing_jax.visualization import pyqtgraph_views
 
     if pyqtgraph_views.pyqtgraph_available():
         classes = pyqtgraph_views.get_pg_view_classes()
-        from mmwave_radar_processing_tpu.visualization.views import VIEW_CLASSES
+        from mmwave_radar_processing_jax.visualization.views import VIEW_CLASSES
 
         assert set(classes) >= set(VIEW_CLASSES) - {
             "sequential_detector", "ground_detector"}
@@ -226,7 +226,7 @@ def test_view_redraw_stability(view_key):
     PointCloudView per-frame ``plt.colorbar`` leak, generalized to every
     registered view class.
     """
-    from mmwave_radar_processing_tpu.visualization.views import VIEW_CLASSES
+    from mmwave_radar_processing_jax.visualization.views import VIEW_CLASSES
 
     rng = np.random.default_rng(13)
     fig, ax = plt.subplots()
@@ -285,16 +285,16 @@ def test_view_redraw_stability(view_key):
 # --- panel caching / uniqueness / browse (ref test 12 + control panel) ------ #
 @pytest.fixture(scope="module")
 def shell(tmp_path_factory, flagship_config):
-    from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frame
-    from mmwave_radar_processing_tpu.data.cpsl_dataset import (
+    from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frame
+    from mmwave_radar_processing_jax.data.cpsl_dataset import (
         make_odom_rows,
         write_dataset,
     )
-    from mmwave_radar_processing_tpu.visualization import (
+    from mmwave_radar_processing_jax.visualization import (
         MmWaveRadarProcessorController,
         get_default_registry,
     )
-    from mmwave_radar_processing_tpu.visualization.shell_logic import ShellLogic
+    from mmwave_radar_processing_jax.visualization.shell_logic import ShellLogic
 
     root = tmp_path_factory.mktemp("guids")
     rng = np.random.default_rng(0)
@@ -388,7 +388,7 @@ def test_qt_main_window_offscreen(shell):
     os.environ.setdefault("QT_QPA_PLATFORM", "offscreen")
     from PyQt6.QtWidgets import QApplication
 
-    from mmwave_radar_processing_tpu.visualization.qt_shell import (
+    from mmwave_radar_processing_jax.visualization.qt_shell import (
         build_main_window,
     )
 
@@ -415,7 +415,7 @@ def pg_classes(monkeypatch):
     import pg_shim
 
     pg_shim.install(monkeypatch)
-    from mmwave_radar_processing_tpu.visualization import pyqtgraph_views
+    from mmwave_radar_processing_jax.visualization import pyqtgraph_views
 
     assert pyqtgraph_views.pyqtgraph_available()
     return pyqtgraph_views.get_pg_view_classes()
@@ -426,7 +426,7 @@ def _rect_tuple(rect):
 
 
 def test_pg_registry_covers_matplotlib_tier(pg_classes):
-    from mmwave_radar_processing_tpu.visualization.views import VIEW_CLASSES
+    from mmwave_radar_processing_jax.visualization.views import VIEW_CLASSES
 
     assert set(pg_classes) >= set(VIEW_CLASSES) - {
         "sequential_detector", "ground_detector"}

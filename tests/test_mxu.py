@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 import scipy.signal
 
-from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frames
-from mmwave_radar_processing_tpu.ops import mxu
+from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frames
+from mmwave_radar_processing_jax.ops import mxu
 
 
 def test_dft_matches_fft(rng):
@@ -54,7 +54,7 @@ def test_zoom_dft_matches_scipy(rng):
 
 def test_reformat_channels_matches_full_reformat(rng):
     """Strided per-channel slices == rows of the full virtual cube."""
-    from mmwave_radar_processing_tpu.processors.virtual_array import (
+    from mmwave_radar_processing_jax.processors.virtual_array import (
         reformat, reformat_channels,
     )
 
@@ -86,7 +86,7 @@ def test_rd_values_at_matches_full_map(rng):
 
 def test_range_dft_channels_matches_reformat_then_dft(rng):
     """Fused reformat+range-DFT == reformat, slice channels, DFT."""
-    from mmwave_radar_processing_tpu.processors.virtual_array import reformat
+    from mmwave_radar_processing_jax.processors.virtual_array import reformat
 
     raw = (
         rng.standard_normal((4, 63, 210)) + 1j * rng.standard_normal((4, 63, 210))
@@ -120,7 +120,7 @@ def test_rd_values_from_range_dft_matches_bilinear(rng):
 
 
 def test_range_doppler_mxu_matches_reference_kernel(flagship_config, rng):
-    from mmwave_radar_processing_tpu.processors.range_doppler import range_doppler_map
+    from mmwave_radar_processing_jax.processors.range_doppler import range_doppler_map
 
     cube = (
         rng.standard_normal((12, 63, 70)) + 1j * rng.standard_normal((12, 63, 70))
@@ -134,7 +134,7 @@ def test_range_doppler_mxu_matches_reference_kernel(flagship_config, rng):
 
 
 def test_mxu_pipeline_matches_xla(flagship_config):
-    from mmwave_radar_processing_tpu.parallel.pipeline import (
+    from mmwave_radar_processing_jax.parallel.pipeline import (
         build_point_cloud_pipeline,
     )
 
@@ -160,12 +160,12 @@ def test_mxu_pipeline_matches_xla(flagship_config):
 
 
 def test_sharded_split_beamformer_matches_dense(flagship_config, rng):
-    from mmwave_radar_processing_tpu.parallel import make_mesh
-    from mmwave_radar_processing_tpu.parallel.sharded_beamform import (
+    from mmwave_radar_processing_jax.parallel import make_mesh
+    from mmwave_radar_processing_jax.parallel.sharded_beamform import (
         build_sharded_beamformer,
     )
-    from mmwave_radar_processing_tpu.processors.synthetic_array import beamform
-    from mmwave_radar_processing_tpu.ops import windows
+    from mmwave_radar_processing_jax.processors.synthetic_array import beamform
+    from mmwave_radar_processing_jax.ops import windows
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     if len(jax.devices()) < 8:
@@ -199,35 +199,16 @@ def test_sharded_split_beamformer_matches_dense(flagship_config, rng):
                                atol=1e-3 * np.abs(dense).max())
 
 
-def test_pallas_rank_select_matches_sort(rng):
-    """Bitonic Pallas kernel (interpret mode on CPU) == sort rank statistic."""
-    from mmwave_radar_processing_tpu.ops import cfar as cfar_ops
-    from mmwave_radar_processing_tpu.ops.pallas.rank_select import kth_smallest
-
-    x = rng.exponential(1.0, (500, 152)).astype(np.float32)
-    for k in (1, 77, 106, 152):
-        out = np.asarray(kth_smallest(x, k, interpret=True))
-        ref = np.sort(x, axis=-1)[:, k - 1]
-        np.testing.assert_array_equal(out, ref)
-
-    # full threshold map: pallas method == sort method
-    m = rng.exponential(1.0, (63, 70)).astype(np.float32)
-    params = dict(num_train=(5, 5), num_guard=(3, 2), rho=0.7, alpha=4.0)
-    thr_sort, _ = cfar_ops.os_2d(m, method="sort", **params)
-    thr_pal, _ = cfar_ops.os_2d(m, method="pallas", **params)
-    np.testing.assert_array_equal(np.asarray(thr_pal), np.asarray(thr_sort))
-
-
 def test_fused_velocity_pipeline_matches_object_api(flagship_config):
     """Device-resident RadVel pipeline vs the object-API estimator."""
-    from mmwave_radar_processing_tpu.data import ground_scene, simulate_frame
-    from mmwave_radar_processing_tpu.parallel.velocity_pipeline import (
+    from mmwave_radar_processing_jax.data import ground_scene, simulate_frame
+    from mmwave_radar_processing_jax.parallel.velocity_pipeline import (
         build_velocity_pipeline,
     )
-    from mmwave_radar_processing_tpu.processors.velocity_estimator import (
+    from mmwave_radar_processing_jax.processors.velocity_estimator import (
         VelocityEstimator,
     )
-    from mmwave_radar_processing_tpu.processors.virtual_array import (
+    from mmwave_radar_processing_jax.processors.virtual_array import (
         VirtualArrayReformatter,
     )
 
@@ -265,11 +246,11 @@ def test_fused_velocity_pipeline_matches_object_api(flagship_config):
 
 def test_synthetic_aperture_scan_matches_object_api(flagship_config, rng):
     """Scan pipeline == object-API beamformer on a steady-track recording."""
-    from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frame
-    from mmwave_radar_processing_tpu.parallel.beamform_pipeline import (
+    from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frame
+    from mmwave_radar_processing_jax.parallel.beamform_pipeline import (
         build_synthetic_aperture_pipeline,
     )
-    from mmwave_radar_processing_tpu.processors.synthetic_array import (
+    from mmwave_radar_processing_jax.processors.synthetic_array import (
         SyntheticArrayBeamformerProcessor,
     )
 
@@ -308,8 +289,8 @@ def test_synthetic_aperture_scan_matches_object_api(flagship_config, rng):
 
 def test_velocity_pipeline_stop_after_stages(flagship_config):
     """The stage-bisection knob returns prefix outputs equal to the full run."""
-    from mmwave_radar_processing_tpu.data import ground_scene, simulate_frame
-    from mmwave_radar_processing_tpu.parallel.velocity_pipeline import (
+    from mmwave_radar_processing_jax.data import ground_scene, simulate_frame
+    from mmwave_radar_processing_jax.parallel.velocity_pipeline import (
         build_velocity_pipeline,
     )
 
@@ -337,14 +318,14 @@ def test_velocity_pipeline_stop_after_stages(flagship_config):
 
 def test_fused_velocity_pipeline_precise(flagship_config):
     """Precise (zoom) path matches the object API's enable_precise_responses."""
-    from mmwave_radar_processing_tpu.data import ground_scene, simulate_frame
-    from mmwave_radar_processing_tpu.parallel.velocity_pipeline import (
+    from mmwave_radar_processing_jax.data import ground_scene, simulate_frame
+    from mmwave_radar_processing_jax.parallel.velocity_pipeline import (
         build_velocity_pipeline,
     )
-    from mmwave_radar_processing_tpu.processors.velocity_estimator import (
+    from mmwave_radar_processing_jax.processors.velocity_estimator import (
         VelocityEstimator,
     )
-    from mmwave_radar_processing_tpu.processors.virtual_array import (
+    from mmwave_radar_processing_jax.processors.virtual_array import (
         VirtualArrayReformatter,
     )
 
@@ -376,11 +357,11 @@ def test_fused_velocity_pipeline_precise(flagship_config):
 
 
 def test_spectral_maps_pipeline_matches_object_api(flagship_config, rng):
-    from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frames
-    from mmwave_radar_processing_tpu.parallel.spectral_pipeline import (
+    from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frames
+    from mmwave_radar_processing_jax.parallel.spectral_pipeline import (
         build_spectral_maps_pipeline,
     )
-    from mmwave_radar_processing_tpu.processors import (
+    from mmwave_radar_processing_jax.processors import (
         DopplerAzimuthProcessor,
         RangeAngleProcessor,
         RangeDopplerProcessor,
@@ -414,11 +395,11 @@ def test_spectral_maps_pipeline_matches_object_api(flagship_config, rng):
 
 
 def test_micro_doppler_pipeline_matches_object_api(flagship_config, rng):
-    from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frames
-    from mmwave_radar_processing_tpu.parallel.spectral_pipeline import (
+    from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frames
+    from mmwave_radar_processing_jax.parallel.spectral_pipeline import (
         build_micro_doppler_pipeline,
     )
-    from mmwave_radar_processing_tpu.processors import (
+    from mmwave_radar_processing_jax.processors import (
         MicroDopplerProcessor,
         VirtualArrayReformatter,
     )
@@ -442,14 +423,14 @@ def test_micro_doppler_pipeline_matches_object_api(flagship_config, rng):
 
 
 def test_dbs_pipeline_matches_object_api(flagship_config, rng):
-    from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frames
-    from mmwave_radar_processing_tpu.parallel.spectral_pipeline import (
+    from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frames
+    from mmwave_radar_processing_jax.parallel.spectral_pipeline import (
         build_dbs_pipeline,
     )
-    from mmwave_radar_processing_tpu.processors.dbs import (
+    from mmwave_radar_processing_jax.processors.dbs import (
         RangeAngleProcessorDBSEnhanced,
     )
-    from mmwave_radar_processing_tpu.processors import VirtualArrayReformatter
+    from mmwave_radar_processing_jax.processors import VirtualArrayReformatter
 
     scenes = [
         Scene(targets=[PointTarget(range_m=1.5, azimuth_rad=0.3,
@@ -483,11 +464,11 @@ def test_dbs_pipeline_matches_object_api(flagship_config, rng):
 
 
 def test_strip_map_pipeline_matches_object_api(flagship_config, rng):
-    from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frames
-    from mmwave_radar_processing_tpu.parallel.spectral_pipeline import (
+    from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frames
+    from mmwave_radar_processing_jax.parallel.spectral_pipeline import (
         build_strip_map_pipeline,
     )
-    from mmwave_radar_processing_tpu.processors import StripMapSARProcessor
+    from mmwave_radar_processing_jax.processors import StripMapSARProcessor
 
     scenes = [Scene(targets=[PointTarget(range_m=1.0, azimuth_rad=0.1, rcs=3.0)])
               for _ in range(2)]
@@ -506,15 +487,15 @@ def test_strip_map_pipeline_matches_object_api(flagship_config, rng):
 
 
 def test_velocity_response_backends_agree(flagship_config):
-    """Pallas fused response kernel == XLA einsum chain on the full pipeline.
+    """Pallas fused response kernel == plain XLA form on the full pipeline.
 
-    Exercises the kernel (interpret mode on CPU) end-to-end through
-    ``build_velocity_pipeline(response_backend="pallas")`` against the XLA
+    Exercises the kernel (Pallas interpreter on the CPU) end-to-end through
+    ``build_velocity_pipeline(response_backend="interpret")`` against the XLA
     formulation on identical frames — the deterministic outputs (vx, R^2,
     inlier fractions) must agree to float32 reassociation noise.
     """
-    from mmwave_radar_processing_tpu.data import ground_scene, simulate_frame
-    from mmwave_radar_processing_tpu.parallel.velocity_pipeline import (
+    from mmwave_radar_processing_jax.data import ground_scene, simulate_frame
+    from mmwave_radar_processing_jax.parallel.velocity_pipeline import (
         build_velocity_pipeline,
     )
 
@@ -533,7 +514,8 @@ def test_velocity_response_backends_agree(flagship_config):
     kw = dict(min_r2_threshold=0.2, min_inlier_percent=0.3)
     out_x = build_velocity_pipeline(flagship_config, response_backend="xla",
                                     **kw)(re, im, alts)
-    out_p = build_velocity_pipeline(flagship_config, response_backend="pallas",
+    out_p = build_velocity_pipeline(flagship_config,
+                                    response_backend="interpret",
                                     **kw)(re, im, alts)
     np.testing.assert_allclose(np.asarray(out_p.vx), np.asarray(out_x.vx),
                                rtol=1e-5, atol=1e-5)
@@ -545,45 +527,87 @@ def test_velocity_response_backends_agree(flagship_config):
     # precise (zoom) path through the kernel as well
     out_xp = build_velocity_pipeline(flagship_config, response_backend="xla",
                                      enable_precise=True, **kw)(re, im, alts)
-    out_pp = build_velocity_pipeline(flagship_config, response_backend="pallas",
+    out_pp = build_velocity_pipeline(flagship_config,
+                                     response_backend="interpret",
                                      enable_precise=True, **kw)(re, im, alts)
     np.testing.assert_allclose(np.asarray(out_pp.vx), np.asarray(out_xp.vx),
                                rtol=1e-4, atol=1e-4)
 
 
+def _doppler_az_numpy(u_re, u_im, wgt, fct, fst, set_idx):
+    """float64 re-derivation: resp[s, v, a] = sum_w wgt |sum_r u F|."""
+    u = np.asarray(u_re, np.float64) + 1j * np.asarray(u_im, np.float64)
+    n_rx = len(set_idx[0])
+    out = np.zeros((len(set_idx), u.shape[-1], fct.shape[-1]))
+    for s, chans in enumerate(set_idx):
+        spec = 0
+        for r, ch in enumerate(chans):
+            # kernel convention: re' = fc*re + fs*im, im' = fc*im - fs*re
+            f = fct[n_rx * s + r] - 1j * fst[n_rx * s + r]
+            spec = spec + u[ch][:, :, None] * f[None, None, :]
+        out[s] = np.einsum("wva,w->va", np.abs(spec), wgt)
+    return out
+
+
 def test_doppler_az_kernel_matches_numpy():
     """Unit oracle for ops.pallas.doppler_az against a numpy re-derivation."""
-    from mmwave_radar_processing_tpu.ops.pallas.doppler_az import (
-        set_responses_pallas,
-    )
+    from mmwave_radar_processing_jax.ops.pallas.doppler_az import set_responses
 
     rng = np.random.default_rng(3)
     n_ch, w, nv, av = 12, 5, 16, 9
     set_idx = ((0, 3, 4, 7), (1, 2, 5, 6), (10, 11, 6, 7), (9, 8, 5, 4))
-    u_re = rng.standard_normal((n_ch, w * nv)).astype(np.float32)
-    u_im = rng.standard_normal((n_ch, w * nv)).astype(np.float32)
+    u_re = rng.standard_normal((n_ch, w, nv)).astype(np.float32)
+    u_im = rng.standard_normal((n_ch, w, nv)).astype(np.float32)
     wgt = rng.uniform(0, 1, w).astype(np.float32)
-    fct = rng.standard_normal((av, 16)).astype(np.float32)
-    fst = rng.standard_normal((av, 16)).astype(np.float32)
-    out = set_responses_pallas(u_re, u_im, wgt, fct, fst, set_idx=set_idx,
-                               nv=nv, interpret=True)
-
-    u3 = (u_re + 1j * u_im).reshape(n_ch, w, nv)
-    ref = np.zeros((4, av, nv), np.float32)
-    for s in range(4):
-        spec = np.zeros((av, w, nv), np.complex64)
-        for r in range(4):
-            f = fct[:, 4 * s + r] - 1j * fst[:, 4 * s + r]
-            # kernel convention: re' = fc*re + fs*im, im' = fc*im - fs*re
-            spec += f[:, None, None].conj() * u3[set_idx[s][r]].conj()
-        ref[s] = np.einsum("awv,w->av", np.abs(spec), wgt)
+    fct = rng.standard_normal((16, av)).astype(np.float32)
+    fst = rng.standard_normal((16, av)).astype(np.float32)
+    out = set_responses(u_re, u_im, wgt, fct, fst, set_idx=set_idx,
+                        interpret=True)
+    ref = _doppler_az_numpy(u_re, u_im, wgt, fct, fst, set_idx)
     np.testing.assert_allclose(np.asarray(out), ref, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("nv", [16, 70, 140])
+def test_doppler_az_kernel_flagship_widths(batch, nv):
+    """Kernel (interpreter) at flagship widths, vmapped over frames.
+
+    ``nv=70`` is the coarse velocity axis (not a multiple of the kernel's
+    velocity block, so the last block is masked), ``nv=140`` the precise
+    path's two zoom half-bands, ``nv=16`` exactly one block; the vmapped
+    batch becomes a grid axis, with batches of one and of several frames.
+    """
+    import jax
+
+    from mmwave_radar_processing_jax.ops.pallas.doppler_az import set_responses
+    from mmwave_radar_processing_jax.processors.velocity_estimator import (
+        ODS_AZ_SETS_VIRTUAL,
+        ODS_EL_SETS_VIRTUAL,
+    )
+
+    set_idx = tuple(tuple(int(c) for c in s)
+                    for s in (*ODS_AZ_SETS_VIRTUAL, *ODS_EL_SETS_VIRTUAL))
+    rng = np.random.default_rng(nv + batch)
+    w, av = 19, 60
+    u_re = rng.standard_normal((batch, 12, w, nv)).astype(np.float32)
+    u_im = rng.standard_normal((batch, 12, w, nv)).astype(np.float32)
+    wgt = rng.uniform(0, 1, (batch, w)).astype(np.float32)
+    wgt /= wgt.sum(axis=1, keepdims=True)
+    fct = rng.standard_normal((16, av)).astype(np.float32)
+    fst = rng.standard_normal((16, av)).astype(np.float32)
+    out = np.asarray(jax.vmap(lambda a, b, c: set_responses(
+        a, b, c, fct, fst, set_idx=set_idx, interpret=True))(u_re, u_im, wgt))
+    assert out.shape == (batch, 4, nv, av)
+    for f in range(batch):
+        ref = _doppler_az_numpy(u_re[f], u_im[f], wgt[f], fct, fst, set_idx)
+        np.testing.assert_allclose(out[f], ref, rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref).max())
+
+
 def test_full_pipeline_combines_products(flagship_config):
-    from mmwave_radar_processing_tpu.data import ground_scene, simulate_frame
-    from mmwave_radar_processing_tpu.parallel.full_pipeline import build_full_pipeline
-    from mmwave_radar_processing_tpu.parallel import (
+    from mmwave_radar_processing_jax.data import ground_scene, simulate_frame
+    from mmwave_radar_processing_jax.parallel.full_pipeline import build_full_pipeline
+    from mmwave_radar_processing_jax.parallel import (
         build_point_cloud_pipeline,
         build_velocity_pipeline,
     )
@@ -617,11 +641,11 @@ def test_full_pipeline_combines_products(flagship_config):
 
 def test_ground_pipeline_matches_object_api(flagship_config):
     """Fused ground-detector pipeline == Altimeter+GroundDetector+PCG chain."""
-    from mmwave_radar_processing_tpu.data import ground_scene, simulate_frame
-    from mmwave_radar_processing_tpu.parallel.ground_pipeline import (
+    from mmwave_radar_processing_jax.data import ground_scene, simulate_frame
+    from mmwave_radar_processing_jax.parallel.ground_pipeline import (
         build_ground_point_cloud_pipeline,
     )
-    from mmwave_radar_processing_tpu.processors import (
+    from mmwave_radar_processing_jax.processors import (
         PointCloudGenerator,
         VirtualArrayReformatter,
     )
@@ -680,8 +704,8 @@ def test_pointcloud_precision_modes_and_dataflows_agree(flagship_config):
     Pins the contract that the knobs trade SPEED, never results (on exact
     hardware).
     """
-    from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frame
-    from mmwave_radar_processing_tpu.parallel.pipeline import (
+    from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frame
+    from mmwave_radar_processing_jax.parallel.pipeline import (
         build_point_cloud_pipeline,
     )
 
@@ -726,7 +750,7 @@ def test_pointcloud_precision_modes_and_dataflows_agree(flagship_config):
 
 def test_rd_values_from_raw_matches_union_cube(flagship_config, rng):
     """``rd_values_from_raw`` == one-hot selection on the range-DFT'd cube."""
-    from mmwave_radar_processing_tpu.ops import mxu
+    from mmwave_radar_processing_jax.ops import mxu
 
     cfg = flagship_config
     ns, nl = cfg.num_adc_samples, cfg.frame.loops
@@ -763,7 +787,7 @@ def test_rd_values_from_raw_matches_union_cube(flagship_config, rng):
 
 def test_doppler_factors_strided_layout():
     """Strided factors place dop rows at cfg::cpl and zeros elsewhere."""
-    from mmwave_radar_processing_tpu.ops import mxu
+    from mmwave_radar_processing_jax.ops import mxu
 
     dc, ds = mxu.dft_factors(8, window=np.hanning(8), shift=True)
     for cfg_idx in (0, 1, 2):
@@ -783,8 +807,8 @@ def test_rawd_cfar_channel_independent_of_aoa_union(flagship_config):
     the rawd CFAR map silently used another channel's response (searchsorted
     insertion point), changing the detection set vs the union dataflow.
     """
-    from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frame
-    from mmwave_radar_processing_tpu.parallel.pipeline import (
+    from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frame
+    from mmwave_radar_processing_jax.parallel.pipeline import (
         build_point_cloud_pipeline,
     )
 
@@ -810,7 +834,7 @@ def test_pipeline_knob_validation(flagship_config):
     """Typo'd dataflow/precision values raise instead of silently degrading."""
     import pytest
 
-    from mmwave_radar_processing_tpu.parallel.pipeline import (
+    from mmwave_radar_processing_jax.parallel.pipeline import (
         build_point_cloud_pipeline,
     )
 

@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from mmwave_radar_processing_tpu.data import native_loader
+from mmwave_radar_processing_jax.data import native_loader
 
 
 @pytest.fixture(scope="module")

@@ -7,16 +7,16 @@ import pytest
 
 from tests.conftest import REFERENCE_ROOT, requires_reference
 
-from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frame
-from mmwave_radar_processing_tpu.processors.detection import (
+from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frame
+from mmwave_radar_processing_jax.processors.detection import (
     RangeDetector,
     RangeDopplerDetector2D,
     RangeDopplerDetectorSequential,
     RangeDopplerGroundDetector,
     get_range_doppler_detector_registry,
 )
-from mmwave_radar_processing_tpu.processors.point_cloud import PointCloudGenerator
-from mmwave_radar_processing_tpu.processors.virtual_array import VirtualArrayReformatter
+from mmwave_radar_processing_jax.processors.point_cloud import PointCloudGenerator
+from mmwave_radar_processing_jax.processors.virtual_array import VirtualArrayReformatter
 
 pytestmark = requires_reference
 

@@ -1,7 +1,7 @@
 """Numerical parity of the spectral/detector processors vs the live reference.
 
 Each test feeds the *same* simulated ADC cube to the upstream numpy
-implementation (imported from the reference checkout) and to our TPU kernels,
+implementation (imported from the reference checkout) and to our JAX kernels,
 and asserts agreement within float32 tolerance.  These are the strongest
 correctness checks in the suite; they skip gracefully when the reference
 checkout is absent (the numeric oracles in test_ops.py still run).
@@ -14,8 +14,8 @@ import pytest
 
 from tests.conftest import REFERENCE_ROOT, requires_reference
 
-from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frame
-from mmwave_radar_processing_tpu.processors import (
+from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frame
+from mmwave_radar_processing_jax.processors import (
     Altimeter,
     DopplerAzimuthProcessor,
     MicroDopplerProcessor,
@@ -259,7 +259,7 @@ def test_cfar_detector_parity(ref_cfg, virtual_cube, flagship_config):
         get_detector_registry as ref_registry,
     )
 
-    from mmwave_radar_processing_tpu.detectors import get_detector_registry
+    from mmwave_radar_processing_jax.detectors import get_detector_registry
 
     rd = RangeDopplerProcessor(flagship_config)
     rd_map = np.asarray(rd.process(virtual_cube, rx_idx=0, return_magnitude=True))

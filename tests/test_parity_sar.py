@@ -7,13 +7,13 @@ import pytest
 
 from tests.conftest import REFERENCE_ROOT, requires_reference
 
-from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frame
-from mmwave_radar_processing_tpu.processors.dbs import RangeAngleProcessorDBSEnhanced
-from mmwave_radar_processing_tpu.processors.strip_map_sar import StripMapSARProcessor
-from mmwave_radar_processing_tpu.processors.synthetic_array import (
+from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frame
+from mmwave_radar_processing_jax.processors.dbs import RangeAngleProcessorDBSEnhanced
+from mmwave_radar_processing_jax.processors.strip_map_sar import StripMapSARProcessor
+from mmwave_radar_processing_jax.processors.synthetic_array import (
     SyntheticArrayBeamformerProcessor,
 )
-from mmwave_radar_processing_tpu.processors.virtual_array import VirtualArrayReformatter
+from mmwave_radar_processing_jax.processors.virtual_array import VirtualArrayReformatter
 
 pytestmark = requires_reference
 

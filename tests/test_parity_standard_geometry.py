@@ -15,15 +15,15 @@ import pytest
 
 from tests.conftest import REFERENCE_ROOT, requires_reference
 
-from mmwave_radar_processing_tpu.config import load_cfg
-from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frame
-from mmwave_radar_processing_tpu.processors import (
+from mmwave_radar_processing_jax.config import load_cfg
+from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frame
+from mmwave_radar_processing_jax.processors import (
     DopplerAzimuthProcessor,
     RangeDopplerProcessor,
     VirtualArrayReformatter,
 )
-from mmwave_radar_processing_tpu.processors.detection import RangeDopplerDetector2D
-from mmwave_radar_processing_tpu.processors.velocity_estimator import VelocityEstimator
+from mmwave_radar_processing_jax.processors.detection import RangeDopplerDetector2D
+from mmwave_radar_processing_jax.processors.velocity_estimator import VelocityEstimator
 
 pytestmark = requires_reference
 

@@ -10,14 +10,14 @@ import matplotlib.pyplot as plt
 import numpy as np
 import pytest
 
-from mmwave_radar_processing_tpu.analysis import VelocityAnalyzer
-from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frame
-from mmwave_radar_processing_tpu.data.cpsl_dataset import (
+from mmwave_radar_processing_jax.analysis import VelocityAnalyzer
+from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frame
+from mmwave_radar_processing_jax.data.cpsl_dataset import (
     CpslDS,
     make_odom_rows,
     write_dataset,
 )
-from mmwave_radar_processing_tpu.plotting import (
+from mmwave_radar_processing_jax.plotting import (
     AnalysisPlotter,
     MmWaveDataMovieGenerator,
     OdometryMovieGenerator,
@@ -26,14 +26,14 @@ from mmwave_radar_processing_tpu.plotting import (
     PlotterSyntheticArrayData,
     SyntheticArrayMovieGenerator,
 )
-from mmwave_radar_processing_tpu.processors import (
+from mmwave_radar_processing_jax.processors import (
     Altimeter,
     MicroDopplerProcessor,
     RangeAngleProcessor,
     RangeDopplerProcessor,
     VirtualArrayReformatter,
 )
-from mmwave_radar_processing_tpu.processors.synthetic_array import (
+from mmwave_radar_processing_jax.processors.synthetic_array import (
     SyntheticArrayBeamformerProcessor,
 )
 
@@ -82,7 +82,7 @@ def test_doppler_azimuth_panels_with_overlays(flagship_config, dataset):
     """Coarse + zoomed Doppler-azimuth panels with peak/GT/estimate overlays
     (reference plot_doppler_az_resp :324-425 / plot_zoomed_doppler_az_resp
     :427-531)."""
-    from mmwave_radar_processing_tpu.processors import DopplerAzimuthProcessor
+    from mmwave_radar_processing_jax.processors import DopplerAzimuthProcessor
 
     var = VirtualArrayReformatter(flagship_config)
     adc = np.asarray(var.process(dataset.get_radar_adc_data(0)))
@@ -118,7 +118,7 @@ def test_doppler_azimuth_panels_with_overlays(flagship_config, dataset):
 
 
 def test_mmwave_movie_generator(flagship_config, dataset, tmp_path):
-    from mmwave_radar_processing_tpu.processors import DopplerAzimuthProcessor
+    from mmwave_radar_processing_jax.processors import DopplerAzimuthProcessor
 
     plotter = PlotterMmWaveData(flagship_config)
     gen = MmWaveDataMovieGenerator(

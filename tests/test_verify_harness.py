@@ -1,14 +1,14 @@
 """Unit tests for the on-chip verification comparator (utils/verify.py).
 
-The TPU-side run of `bench.py --verify` cannot execute in the CPU-pinned
-test suite, but the comparison semantics — set-IoU for compacted point
+The device run of `bench.py --verify` needs the GPU, but the comparison
+semantics — set-IoU for compacted point
 sets, count-within-2, angle-flip attribution, discrete/float leaf rules —
 are pure host logic and are pinned here.
 """
 
 import numpy as np
 
-from mmwave_radar_processing_tpu.utils.verify import (
+from mmwave_radar_processing_jax.utils.verify import (
     MIN_POINTS_IOU,
     compare_outputs,
 )
@@ -88,21 +88,22 @@ def test_plain_leaf_rules():
 def test_f32_row_held_to_raised_gates():
     """pointcloud_f32 points/count leaves gate at 0.95, others at defaults.
 
-    Round-5 mandate: "ok" on the certified full-precision row must mean
-    certification (IoU >= 0.95 mean, counts within-2 on >= 95% of frames),
-    not the lenient floor the fast row uses.
+    "ok" on the certified full-precision row must mean certification (IoU
+    >= 0.95 mean, counts within-2 on >= 95% of frames), not the lower floor
+    the TF32 rows use.
     """
     import numpy as np
 
-    from mmwave_radar_processing_tpu.utils import verify as v
+    from mmwave_radar_processing_jax.utils import verify as v
 
-    pts = np.zeros((4, 8, 4), np.float32)
-    valid = np.zeros((4, 8), bool)
+    n = 16
+    pts = np.zeros((n, 8, 4), np.float32)
+    valid = np.zeros((n, 8), bool)
     valid[:, :3] = True
     pts[:, :3] = np.arange(12, dtype=np.float32).reshape(1, 3, 4)
-    count = np.full(4, 3, np.int64)
+    count = np.full(n, 3, np.int64)
 
-    # an 0.85-class disagreement: one frame's set fully different
+    # a 0.94-class disagreement (15 of 16 frames): one frame's set differs
     pts_bad = pts.copy()
     pts_bad[0, :3] += 5.0
     oracle = {"pointcloud_f32/points": pts, "pointcloud_f32/valid": valid,
@@ -113,19 +114,40 @@ def test_f32_row_held_to_raised_gates():
                              "pointcloud/points": pts_bad})
     rep = v.compare_outputs(oracle, device)
     by_leaf = {l["leaf"]: l for l in rep["leaves"]}
-    # same numerical disagreement: fast row passes its 0.75 gate, the f32
+    # same numerical disagreement: fast row passes its lower gate, the f32
     # row fails its raised 0.95 gate
+    assert v.MIN_POINTS_IOU < 15 / 16 < 0.95
     assert by_leaf["pointcloud/points"]["ok"]
     assert by_leaf["pointcloud/points"]["gate"] == v.MIN_POINTS_IOU
     assert not by_leaf["pointcloud_f32/points"]["ok"]
     assert by_leaf["pointcloud_f32/points"]["gate"] == 0.95
     assert not rep["ok"]
 
-    # count gate: off-by-3 on one frame of four = 75% within-2 -> both fail;
-    # off-by-1 everywhere -> fast passes, f32 passes (within 2, 100%)
+    # count gate: off-by-1 everywhere -> f32 passes (within 2, 100%)
     device2 = dict(oracle)
     device2["pointcloud_f32/count"] = count + 1
     rep2 = v.compare_outputs(oracle, device2)
     by_leaf2 = {l["leaf"]: l for l in rep2["leaves"]}
     assert by_leaf2["pointcloud_f32/count"]["ok"]
     assert by_leaf2["pointcloud_f32/count"]["gate"] == 0.95
+
+
+def test_every_metric_states_its_precision():
+    from mmwave_radar_processing_jax.utils import verify as v
+
+    assert set(v.METRIC_PRECISION) == set(v.VERIFY_METRICS)
+
+
+def test_format_report_names_leaf_and_precision():
+    from mmwave_radar_processing_jax.utils import verify as v
+
+    o = {"pointcloud_f32/count": np.array([3, 4]),
+         "velocity/vx": np.array([0.5, 0.25], np.float32)}
+    rep = dict(v.compare_outputs(o, {k: x.copy() for k, x in o.items()}),
+               device="test-device", batch=2)
+    text = v.format_report(rep)
+    assert text.splitlines()[0].startswith("verify on test-device")
+    assert text.count("agree=1.00000") == 2
+    assert v.METRIC_PRECISION["pointcloud_f32"] in text
+    assert v.METRIC_PRECISION["velocity"] in text
+    assert len(text.splitlines()) == 3

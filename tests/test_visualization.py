@@ -17,13 +17,13 @@ import numpy as np
 import pytest
 import yaml
 
-from mmwave_radar_processing_tpu.data import PointTarget, Scene, simulate_frame
-from mmwave_radar_processing_tpu.data.cpsl_dataset import make_odom_rows, write_dataset
-from mmwave_radar_processing_tpu.visualization import (
+from mmwave_radar_processing_jax.data import PointTarget, Scene, simulate_frame
+from mmwave_radar_processing_jax.data.cpsl_dataset import make_odom_rows, write_dataset
+from mmwave_radar_processing_jax.visualization import (
     MmWaveRadarProcessorController,
     get_default_registry,
 )
-from mmwave_radar_processing_tpu.visualization.views import VIEW_CLASSES
+from mmwave_radar_processing_jax.visualization.views import VIEW_CLASSES
 
 
 @pytest.fixture(scope="module")
@@ -141,7 +141,7 @@ def test_all_views_render(controller):
 
 
 def test_view_db_conversion():
-    from mmwave_radar_processing_tpu.visualization.views import RangeDopplerView
+    from mmwave_radar_processing_jax.visualization.views import RangeDopplerView
 
     fig, ax = plt.subplots()
     v = RangeDopplerView(ax=ax)
@@ -159,7 +159,7 @@ def test_view_db_conversion():
 
 
 def test_video_export(controller, tmp_path):
-    from mmwave_radar_processing_tpu.visualization.video_exporter import VideoExporter
+    from mmwave_radar_processing_jax.visualization.video_exporter import VideoExporter
 
     out = str(tmp_path / "out.mp4")  # falls back to .gif without ffmpeg
     exporter = VideoExporter(
@@ -175,7 +175,7 @@ def test_video_export(controller, tmp_path):
 
 
 def test_view_panel_model():
-    from mmwave_radar_processing_tpu.visualization.view_panel import ViewPanelModel
+    from mmwave_radar_processing_jax.visualization.view_panel import ViewPanelModel
 
     events = []
     panel = ViewPanelModel(num_cells=4, on_assign=lambda c, k: events.append((c, k)))
@@ -197,7 +197,7 @@ def test_view_panel_model():
     assert panel.cell_of("altitude") == 1
 
 
-# --- precompute-then-scrub playback (round-4 TPU-backed viewer) ------------- #
+# --- precompute-then-scrub playback (device-backed viewer) ------------- #
 def _fresh_controller(sim_dataset):
     ds_path, pp_path = sim_dataset
     registry = get_default_registry()
@@ -220,7 +220,7 @@ def test_precomputed_payload_parity(sim_dataset):
     stateful histories exactly/shape-wise, bins bit-identically (they come
     off the same live processor either way).
     """
-    from mmwave_radar_processing_tpu.visualization.precompute import COVERED
+    from mmwave_radar_processing_jax.visualization.precompute import COVERED
 
     ref_ctl = _fresh_controller(sim_dataset)
     ref_payloads = {}
